@@ -19,9 +19,6 @@ Run:  PYTHONPATH=. python examples/excited_states.py
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from nbed_tpu import nbed  # noqa: E402
 from nbed_tpu.driver import run_emb_cis, run_emb_rpa  # noqa: E402

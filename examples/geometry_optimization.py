@@ -13,10 +13,6 @@ Defaults: stretched water / STO-3G.
 
 import sys
 
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

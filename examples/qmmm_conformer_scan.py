@@ -14,8 +14,6 @@ import time
 
 import jax
 
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -11,9 +11,6 @@ Run:  PYTHONPATH=. python examples/qubit_mappings.py
 
 import numpy as np
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from nbed_tpu import nbed  # noqa: E402
 from nbed_tpu.ham import (  # noqa: E402

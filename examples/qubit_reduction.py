@@ -12,10 +12,6 @@ import sys
 import time
 from pathlib import Path
 
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 from nbed_tpu import nbed  # noqa: E402
 from nbed_tpu.ham.resources import embedding_reduction  # noqa: E402

@@ -6,15 +6,8 @@ SCF+gradient evaluations run as ONE vmapped compiled program, optionally
 sharded over a device-mesh batch axis) -> mass-weighted normal-mode
 analysis with Eckart TR projection.
 
-Run:  PYTHONPATH=/root/repo python examples/vibrational_analysis.py
+Run:  PYTHONPATH=. python examples/vibrational_analysis.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 from pathlib import Path  # noqa: E402
 

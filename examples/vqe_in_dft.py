@@ -3,7 +3,7 @@ Hamiltonian — the package's end-to-end purpose.
 
 Mirrors the reference's ``docs/notebooks/7. vqe-in-dft.ipynb``, which
 exports the embedded ``(constant, h1, h2)`` tuple to an external quantum
-SDK; here the VQE is the built-in TPU-native statevector solver
+SDK; here the VQE is the built-in on-device statevector solver
 (``nbed_tpu.solvers.run_vqe``): disentangled-UCCSD ansatz as one
 ``lax.scan`` of XOR-gather Pauli rotations, X-mask-grouped expectation
 values, autodiff gradients, L-BFGS outer loop.
@@ -12,14 +12,13 @@ Pipeline: water / STO-3G, oxygen active, SPADE + mu projector, B3LYP
 environment -> embedded Hamiltonian (qubit count reduced by the
 embedding) -> VQE ground state vs the embedded-FCI oracle.
 
-Run:  PYTHONPATH=/root/repo python examples/vqe_in_dft.py
+Run:  PYTHONPATH=. python examples/vqe_in_dft.py
 """
 
 import pathlib
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402

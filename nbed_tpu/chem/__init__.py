@@ -4,7 +4,7 @@ Replaces the reference's delegation to ``pyscf.gto`` (reference
 driver.py:87-104, SURVEY.md §2.3 row 1) with a self-contained basis parser
 and shell tables designed so that every downstream integral kernel is a pure
 function of atomic coordinates with static shapes — the property that makes
-``vmap`` over conformer batches and ``jit`` re-use work on TPU.
+``vmap`` over conformer batches and ``jit`` re-use work on the device.
 """
 
 from .molecule import Molecule, build_molecule, parse_xyz

@@ -12,29 +12,16 @@ reference pyproject requires pyscf >= 2.3); 'b3lyp5' uses VWN5.
 
 import re
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["FUNCTIONALS", "resolve_functional"]
 
 _TINY = 1e-12
-# TPU f64 is emulated as a two-f32 "double-double": ~1e-13 precision but
-# f32's EXPONENT range (+-3.4e38, denormals flushed).  Any intermediate
-# outside that range — including autodiff quotient-rule denominators like
-# (r^{8/3})^2 — becomes inf/0 and poisons the whole grid reduction
-# (measured round 3: B3LYP exc NaN from rho~3e-11 tails).  A 1e-9 per-spin
-# floor keeps every power in range; the energy cost of masking below 1e-9
-# total density is ~5e-9 Ha (water/B3LYP sweep).
-_TINY_TPU = 1e-9
-
-
-def _tiny():
-    return _TINY_TPU if jax.default_backend() == "tpu" else _TINY
 
 
 def _safe(rho):
-    return jnp.maximum(rho, _tiny())
+    return jnp.maximum(rho, _TINY)
 
 
 # ----------------------------------------------------------------- exchange
@@ -126,11 +113,10 @@ def lyp_c(ra, rb, gaa, gab, gbb):
     rm13 = rho ** (-1.0 / 3.0)
     denom = 1.0 + d * rm13
     # omega = exp(-c*rho^-1/3) * rho^(-11/3) / denom, with the power folded
-    # into the exponential: the bare rho**(-11/3) factor overflows the
-    # emulated-f64 exponent range on TPU (two-f32 "double-double" carries
-    # f32's +-3.4e38 range; rho ~ 3e-11 at grid tails -> 1e40 -> inf, then
-    # exp(-1176) * inf -> NaN, measured round 3).  Folded, the whole factor
-    # underflows cleanly to zero and its autodiff chain stays finite.
+    # into the exponential: the bare rho**(-11/3) factor is huge at grid
+    # tails while exp(-c*rho^-1/3) is tiny, and their product (and its
+    # autodiff chain) is safer as one exponential.  Folded, the whole
+    # factor underflows cleanly to zero and stays finite in any f64.
     omega = jnp.exp(-c * rm13 - (11.0 / 3.0) * jnp.log(rho)) / denom
     delta = c * rm13 + d * rm13 / denom
     g_tot = gaa + 2.0 * gab + gbb
@@ -185,9 +171,8 @@ def pbe_x(ra, rb, gaa, gab, gbb):
         kf = (3.0 * np.pi**2 * r2) ** (1.0 / 3.0)
         # s2 split as (g/r2^2) * r2^(-2/3): the single-quotient form
         # g/(4 kf^2 r2^2) has an autodiff quotient-rule denominator
-        # ~ r2^(16/3), which leaves the emulated-f64 exponent range on TPU
-        # (flushes to 0 -> inf gradients for r2 < ~1e-8, measured round 3);
-        # each factor here stays within range down to the _safe floor.
+        # ~ r2^(16/3), which underflows at low density; each factor here
+        # stays within range down to the _safe floor.
         u = jnp.maximum(g, 0.0) / (r2 * r2)
         s2 = u * r2 ** (-2.0 / 3.0) / (4.0 * (3.0 * np.pi**2) ** (2.0 / 3.0))
         fx = 1.0 + kappa - kappa / (1.0 + mu * s2 / kappa)
@@ -279,7 +264,7 @@ def pbe_c(ra, rb, gaa, gab, gbb):
     gnorm2 = jnp.maximum(gaa + 2.0 * gab + gbb, 0.0)
     # split as (g/rho^2) / (2 phi ks)^2: the fused denominator
     # (2 phi ks rho)^2 ~ rho^(7/3) makes the autodiff quotient-rule
-    # square ~ rho^(14/3) underflow the emulated-f64 range on TPU
+    # square ~ rho^(14/3), which underflows at low density
     t2 = gnorm2 / (rho * rho) / (2.0 * phi * ks) ** 2
     expo = jnp.exp(-eps / (gamma * phi**3))
     a_coef = (beta / gamma) / jnp.maximum(expo - 1.0, 1e-30)
@@ -299,10 +284,9 @@ def _tpss_fx(r2, g2, t2):
     x(p, z, alpha) built from p = s^2, z = tau_W/tau and
     q_b = (9/20)(alpha-1)/sqrt(1 + b alpha(alpha-1)) + 2p/3.
 
-    All intermediates are kept within the emulated-f64 exponent range on
-    TPU (see _TINY_TPU): p and alpha are clamped at values far beyond where
-    F_x has saturated, and the s^2 quotient is split into range-safe
-    factors like pbe_x.
+    All intermediates are kept within range at low density: p and alpha
+    are clamped at values far beyond where F_x has saturated, and the s^2
+    quotient is split into range-safe factors like pbe_x.
     """
     kappa, b, c, e, mu = 0.804, 0.40, 1.59096, 1.537, 0.21951
     r2 = _safe(r2)
@@ -313,7 +297,7 @@ def _tpss_fx(r2, g2, t2):
     p = jnp.clip(p, 0.0, 1.0e4)  # F_x(p>100) is saturated at 1+kappa
     tau_w = 0.125 * u * r2  # |grad rho|^2 / (8 rho)
     tau_unif = 0.3 * (3.0 * np.pi**2) ** (2.0 / 3.0) * r2 ** (5.0 / 3.0)
-    t2 = jnp.maximum(t2, tau_w + _tiny() * tau_unif)  # tau >= tau_W exactly
+    t2 = jnp.maximum(t2, tau_w + _TINY * tau_unif)  # tau >= tau_W exactly
     z = jnp.clip(tau_w / t2, 0.0, 1.0)
     alpha = jnp.clip((t2 - tau_w) / tau_unif, 0.0, 1.0e6)
     q_b = (0.45 * (alpha - 1.0)
@@ -370,7 +354,7 @@ def tpss_c(ra, rb, gaa, gab, gbb, ta, tb):
     rb = _safe(rb)
     rho = ra + rb
     g_tot = jnp.maximum(gaa + 2.0 * gab + gbb, 0.0)
-    tau = jnp.maximum(ta + tb, _tiny())
+    tau = jnp.maximum(ta + tb, _TINY)
     tau_w = 0.125 * g_tot / rho
     z = jnp.clip(tau_w / jnp.maximum(tau, tau_w), 0.0, 1.0)
     z2 = z * z
@@ -390,9 +374,9 @@ def tpss_c(ra, rb, gaa, gab, gbb, ta, tb):
     c0 = 0.53 + zeta**2 * (0.87 + zeta**2 * (0.50 + 2.26 * zeta**2))
     damp_arg = xi2 * 0.5 * ((1.0 + zeta) ** (-4.0 / 3.0)
                             + (1.0 - zeta) ** (-4.0 / 3.0))
-    # (1 + u)^-4 via exp(-4 log1p(u)): u reaches ~1e24 at TPU grid tails and
-    # the direct 4th power would overflow the emulated-f64 exponent range;
-    # the exponential underflows cleanly to zero instead.
+    # (1 + u)^-4 via exp(-4 log1p(u)): u reaches ~1e24 at grid tails and
+    # the direct 4th power (and its autodiff chain) leaves the range; the
+    # exponential underflows cleanly to zero instead.
     c_zx = c0 * jnp.exp(-4.0 * jnp.log1p(damp_arg))
 
     eps_full = _pbe_c_per_particle(ra, rb, gaa, gab, gbb)
@@ -439,15 +423,15 @@ def _scan_fx(r2, g2, t2):
 
     r2 = _safe(r2)
     g2 = jnp.maximum(g2, 0.0)
-    u = g2 / (r2 * r2)  # range-split s^2 (cf. pbe_x TPU note)
+    u = g2 / (r2 * r2)  # range-split s^2 (cf. pbe_x)
     p = u * r2 ** (-2.0 / 3.0) / (4.0 * (3.0 * np.pi**2) ** (2.0 / 3.0))
     p = jnp.clip(p, 0.0, 1.0e4)
     tau_w = 0.125 * u * r2
     tau_unif = 0.3 * (3.0 * np.pi**2) ** (2.0 / 3.0) * r2 ** (5.0 / 3.0)
     t2 = jnp.maximum(t2, tau_w)
     # guard only exact zero: r2 is _safe-floored so tau_unif >= ~3e-16;
-    # an absolute _tiny() floor here (1e-9 on TPU) would swamp tau_unif at
-    # low density and push alpha (hence F_x) off the UEG limit
+    # an absolute density-scale floor here would swamp tau_unif at low
+    # density and push alpha (hence F_x) off the UEG limit
     alpha = jnp.clip((t2 - tau_w) / jnp.maximum(tau_unif, 1e-30), 0.0, 1e6)
 
     one_ma = 1.0 - alpha
@@ -455,7 +439,7 @@ def _scan_fx(r2, g2, t2):
          * (1.0 + (b4 * p / mu_ak) * jnp.exp(-jnp.abs(b4) * p / mu_ak))
          + (b1 * p + b2 * one_ma * jnp.exp(-b3 * one_ma * one_ma)) ** 2)
     h1x = 1.0 + k1 - k1 / (1.0 + x / k1)
-    gx = 1.0 - jnp.exp(-a1 / jnp.sqrt(jnp.sqrt(jnp.maximum(p, _tiny() ** 2))))
+    gx = 1.0 - jnp.exp(-a1 / jnp.sqrt(jnp.sqrt(jnp.maximum(p, _TINY ** 2))))
     fx_a = _scan_interp(alpha, c1x, c2x, dx)
     return (h1x + fx_a * (h0x - h1x)) * gx
 
@@ -500,7 +484,7 @@ def scan_c(ra, rb, gaa, gab, gbb, ta, tb):
     tau_unif = 0.3 * (3.0 * np.pi**2) ** (2.0 / 3.0) * rho ** (5.0 / 3.0)
     ds_z = 0.5 * ((1.0 + zeta) ** (5.0 / 3.0) + (1.0 - zeta) ** (5.0 / 3.0))
     # 1e-30 floor: guards exact zero only (rho is _safe-floored, so
-    # tau_unif*ds_z >= ~1e-16; the TPU _tiny()=1e-9 would dominate it at
+    # tau_unif*ds_z >= ~1e-16; a density-scale floor would dominate it at
     # low density and bias alpha, see _scan_fx)
     alpha = jnp.clip(
         (jnp.maximum(tau, tau_w) - tau_w)
@@ -557,8 +541,8 @@ def _b97_u(x2, gamma):
 
 
 def _b97_x2(r, g):
-    """x_sigma^2 = sigma_ss / rho_s^{8/3}, range-split for the TPU
-    emulated-f64 exponent window (cf. pbe_x)."""
+    """x_sigma^2 = sigma_ss / rho_s^{8/3}, range-split to keep autodiff
+    denominators in range (cf. pbe_x)."""
     r = _safe(r)
     return (jnp.maximum(g, 0.0) / (r * r)) * r ** (-2.0 / 3.0)
 

@@ -3,12 +3,11 @@
 The potential matrices are derived from the energy-density closure by JAX
 autodiff, so every functional in :mod:`nbed_tpu.dft.functionals` gets exact
 ``vrho``/``vsigma`` for free. The per-iteration cost is a handful of
-(G, nao) x (nao, nao) GEMMs — MXU-shaped by construction — evaluated over
-grid chunks under ``lax.fori_loop`` with carried (exc, vxc) accumulators so
-peak memory is bounded for large molecules (the earlier ``lax.map``
-lowering stacked per-chunk outputs and hard-crashed the TPU worker at
-pfoa scale; sequential accumulation is the same structure as the
-aux-chunked DF exchange that is stable there). The streaming variant
+(G, nao) x (nao, nao) GEMMs evaluated over grid chunks under
+``lax.fori_loop`` with carried (exc, vxc) accumulators so peak memory is
+bounded for large molecules (a ``lax.map`` would stack per-chunk outputs;
+sequential accumulation is the same structure as the aux-chunked DF
+exchange). The streaming variant
 recomputes AO values per chunk (AO evaluation is a tiny fraction of the
 GEMM cost), keeping memory at O(chunk * nao) instead of O(G * nao).
 """
@@ -22,16 +21,9 @@ __all__ = ["make_xc_fn", "make_xc_fn_streaming"]
 
 
 def _mask_thresh(dtype):
-    """Density cut below which grid points are masked out of the XC math.
-
-    f64 on TPU is emulated with f32's exponent range (see
-    functionals._TINY_TPU): GGA intermediates for rho below ~1e-9 can
-    overflow/underflow it, so the TPU mask is coarser.  Measured cost of
-    1e-9 vs 1e-11 on water/B3LYP: 4.8e-9 Ha.
-    """
-    if dtype == jnp.float64:
-        return 1e-9 if jax.default_backend() == "tpu" else 1e-11
-    return 3e-6
+    """Density cut below which grid points are masked out of the XC math
+    (coarser in f32, whose exponent range GGA intermediates leave first)."""
+    return 1e-11 if dtype == jnp.float64 else 3e-6
 
 
 def _chunk_math(terms, thresh):

@@ -1,8 +1,8 @@
 """Molecular quadrature grids for XC integration.
 
 Product spherical grids (Gauss-Legendre x uniform azimuth — exact for
-spherical harmonics to high degree, and trivially TPU-shaped: one dense
-(G, nao) AO-value matrix feeds MXU GEMMs) on Mura-Knowles radial shells,
+spherical harmonics to high degree, and GEMM-shaped: one dense
+(G, nao) AO-value matrix feeds the XC GEMMs) on Mura-Knowles radial shells,
 with Becke fuzzy-cell partitioning. Replaces the reference's dependence on
 PySCF/libxc grids (SURVEY.md §2.3 row 3).
 """

@@ -311,13 +311,11 @@ def eval_aos(mol: Molecule, points, coords=None):
     """AO values and gradients on grid points.
 
     All per-shell intermediates keep the grid axis G MINOR (shapes
-    ``(ncart, G)``), never ``(G, ncart)``: on TPU every f32 array is tiled
-    ``(8, 128)`` over its last two dims, so a ``(G, 1)`` s-shell column
-    pads 128x on the lane axis — at pfoa scale (G=384k, 66 shells) that
-    compiled to a 19.96 GB program (8% utilization) and OOMed the 16 GB
-    v5e.  With G minor the padding is at most 8x on the one-row sublane
-    axis (~1.5 MB/shell), and the single concatenated table transposes
-    back to the public layout in one well-tiled copy.
+    ``(ncart, G)``), never ``(G, ncart)``: the long axis stays contiguous,
+    so the tiny per-shell cartesian axis never becomes the innermost
+    (padded, strided) dimension of a large array, and the single
+    concatenated table transposes back to the public layout in one
+    copy.
 
     Returns:
         ao: (G, nao); ao_grad: (3, G, nao).

@@ -1,6 +1,6 @@
 """Gaussian integral engine: jit-compiled McMurchie–Davidson kernels.
 
-TPU-native replacement for the reference's delegated PySCF/libcint integral
+Native replacement for the reference's delegated PySCF/libcint integral
 surface (SURVEY.md §2.3 rows 2-3): overlap/kinetic/nuclear one-electron
 matrices, point-charge (QM/MM) attraction, dipole moments, cross-basis
 overlap, and the full two-electron repulsion tensor.
@@ -10,7 +10,7 @@ contraction-length classes on the host; within a class, a single vectorised
 kernel (pure function of atomic coordinates) is ``vmap``-ped over the
 pair/quartet list and assembled by precomputed static index scatter. The
 heavy arithmetic is batched tensor algebra (einsums over Hermite E / R
-tables), which XLA maps onto the TPU's vector/matrix units, and the whole
+tables), which XLA maps onto the device's vector/matrix units, and the whole
 engine is differentiable and ``vmap``-able over conformer coordinates.
 """
 

@@ -16,7 +16,7 @@ SURVEY.md §2.3 row 3).
 
 Blocks are finally rotated to spherical AOs with the per-shell
 (norm-folding) cart2sph matrices and scattered to all 8 symmetric positions
-with precomputed indices.  The output tensor feeds MXU-friendly J/K GEMMs.
+with precomputed indices.  The output tensor feeds the J/K GEMMs.
 """
 
 from functools import lru_cache

@@ -1,4 +1,4 @@
-"""AO -> MO integral transforms as MXU-friendly einsum chains.
+"""AO -> MO integral transforms as GEMM-shaped einsum chains.
 
 Replaces PySCF ``ao2mo.kernel``/``restore`` (reference ham_builder.py:128-149)
 with the O(N^5) quarter-transform chain, jit-compiled.
@@ -22,7 +22,7 @@ def ao_to_mo_eri(eri_ao, c1, c2=None, c3=None, c4=None):
     """(ij|kl)_MO = sum (mu nu|la si) C_mu i C_nu j C_la k C_si l.
 
     Quarter transforms (each a GEMM over a reshaped tensor) keep the cost at
-    O(N^5) and map straight onto the MXU.
+    O(N^5) and map straight onto the GEMM units.
     """
     c2 = c1 if c2 is None else c2
     c3 = c1 if c3 is None else c3

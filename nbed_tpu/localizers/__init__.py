@@ -2,7 +2,7 @@
 
 Self-contained replacements for the reference's localizer stack
 (reference nbed/localizers/): SPADE and concentric localization are batched
-S^1/2-matmul + SVD pipelines (natively TPU-shaped); PM/Boys/IBO are Jacobi
+S^1/2-matmul + SVD pipelines (dense device linear algebra); PM/Boys/IBO are Jacobi
 2x2 rotation sweeps over our own dipole / Lowdin-population integrals
 instead of PySCF ``lo``.
 """

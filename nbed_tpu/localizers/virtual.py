@@ -3,7 +3,7 @@
 CL (Claudino & Mayhall, JCTC 15, 6085 (2019); reference virtual/concentric.py)
 truncates the embedded virtual space by repeated SVDs of overlap- and
 Fock-projected virtuals — a batched dense-linear-algebra pipeline well
-suited to TPU eigh/SVD. PAO (reference virtual/projected_atomic.py) builds
+suited to device eigh/SVD. PAO (reference virtual/projected_atomic.py) builds
 projected atomic orbitals for the Huzinaga path.
 """
 

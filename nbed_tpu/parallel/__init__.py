@@ -1,14 +1,15 @@
 """Multi-chip scale-out: conformer data parallelism + sharded Fock builds.
 
 The reference has no distributed code at all (SURVEY.md §2.3); the natural
-TPU-native parallel dimensions for this domain are:
+parallel dimensions for this domain are:
 
 - **data parallel**: ``vmap`` over conformer/geometry batches (every
   integral/SCF kernel is a pure function of coordinates with static shapes),
   sharded over a mesh 'batch' axis;
 - **model parallel**: the O(N^4) ERI supermatrices sharded over a 'model'
   axis, so the per-iteration J/K GEMMs run as partial contractions joined by
-  ICI collectives (XLA inserts psum/all-gather from sharding annotations).
+  collectives (XLA inserts psum/all-gather from sharding annotations; NCCL
+  over NVLink on the GPU).
 """
 
 from .embed_path import batched_embedding_energies, make_mu_embed_energy

@@ -7,7 +7,7 @@ total-energy assembly into a SINGLE pure XLA program ``coords ->
 e_emb_rhf``, so the full WF-in-DFT energy can be
 
 ``vmap``-ed over conformer fleets (reaction paths, scans) with the
-batch axis sharded over the mesh — the TPU-native form of the
+batch axis sharded over the mesh — the batched form of the
 reference's ACE reaction-path workflow (its per-geometry Python
 pipeline, reference ace.py:54-85, becomes one batched device program).
 

@@ -5,7 +5,7 @@ big operands, let XLA insert the collectives.
 
 - ERI supermatrices ``(N^2, N^2)`` are sharded row-wise over the 'model'
   axis: each device holds a slab and computes its slice of J/K; the results
-  are re-replicated by an all-gather that rides ICI.
+  are re-replicated by an all-gather over the interconnect.
 - Conformer batches shard over the 'batch' axis; each device runs the whole
   SCF for its conformers (embarrassingly parallel, no cross-device traffic
   inside a step).
@@ -54,13 +54,12 @@ def pad_to_multiple(x, multiple: int, axes=(0,)):
 
 def _df_k_gemm(b, d):
     """Aux-sharded DF exchange: K_ij = B_ikP D_kl B_jlP as a pure GEMM
-    chain (no in-loop eigh: TPU f64 eigh has f32-grade eigenvectors and
-    large-n f32 eigh can NaN; at full rank the eigen route costs the same
-    naux*nao^3 anyway — round-3 pfoa bisect, matching the single-device
+    chain (no in-loop eigh: at full rank the eigen route costs the same
+    naux*nao^3 plus an eigh per cycle), matching the single-device
     engine's _df_k_spin, whose aux-axis chunking is NOT used here because
     slicing the sharded axis inside jit would force a gather; the sharding
     itself already bounds the per-device intermediate to
-    nao^2 * naux / n_model). P stays sharded through both contractions;
+    nao^2 * naux / n_model. P stays sharded through both contractions;
     the reduction over P in the second is GSPMD's one all-reduce."""
     t = jnp.einsum("ikP,kl->ilP", b, d)
     return jnp.einsum("ilP,jlP->ij", t, b)
@@ -115,7 +114,7 @@ def sharded_scf(mol: Molecule, mesh: Mesh, coords=None, nelec=None, **scf_kwargs
 
     The J/K builds become distributed GEMMs: each device contracts its slab
     of (ij|kl) / (ik|jl) with the (replicated) density and XLA all-gathers
-    the result over ICI. Returns the (replicated) SCFResult.
+    the result over the interconnect. Returns the (replicated) SCFResult.
     """
     fn, args = make_sharded_scf(mol, mesh, coords=coords, nelec=nelec,
                                 **scf_kwargs)
@@ -134,7 +133,7 @@ def make_sharded_df_scf(mol: Molecule, mesh: Mesh, coords=None, nelec=None,
 
     - J:  rho_P = B_abP D_ab stays aux-sharded (no traffic); the
       back-contraction J_ab = B_abP rho_P is a partial sum per device that
-      GSPMD finishes with one all-reduce over 'model' (rides ICI).
+      GSPMD finishes with one all-reduce over 'model'.
     - K:  T_ioP = B_ikP C_ko is aux-sharded; K_ij = T_ioP T_joP again
       reduces over the sharded axis -> one all-reduce.
 
@@ -188,7 +187,7 @@ def make_sharded_df_ks(mol: Molecule, mesh: Mesh, xc: str = "b3lyp",
       the 'model' axis and sharded on G. Each device evaluates densities
       and the functional on its grid slab; the Vxc back-contractions
       ``einsum('g,gp,gq->pq')`` reduce over the sharded axis, which GSPMD
-      finishes with one all-reduce riding ICI. Zero-padding is exact: the
+      finishes with one all-reduce. Zero-padding is exact: the
       padded weights are zero, so both the energy sum and every
       ``d(exc)/d(rho)`` potential weight vanish on pad rows.
 
@@ -292,7 +291,7 @@ def sharded_df_scf(mol: Molecule, mesh: Mesh, coords=None, nelec=None,
     """Density-fitted HF with the B factor sharded over the 'model' axis.
 
     The scalable multi-chip path: per-device memory is O(nao^2 naux / n_model)
-    and each J/K build costs one all-reduce over ICI (see
+    and each J/K build costs one all-reduce (see
     :func:`make_sharded_df_scf`).
     """
     fn, args = make_sharded_df_scf(mol, mesh, coords=coords, nelec=nelec,
@@ -306,7 +305,7 @@ def batched_hf_energies(mol: Molecule, coords_batch, mesh: Mesh | None = None,
 
     ``coords_batch``: (B, natm, 3) in bohr. With a mesh, the batch axis is
     sharded over the mesh 'batch' axis (pure data parallelism). This is the
-    TPU-native answer to BASELINE config #5 (batched geometry scans).
+    batched answer to BASELINE config #5 (batched geometry scans).
     """
     coords_batch = jnp.asarray(coords_batch)
     n = mol.nao

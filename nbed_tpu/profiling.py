@@ -3,7 +3,7 @@
 The reference has no tracing/profiling at all (SURVEY.md §5.1); wall-time is
 the headline metric of this build, so the driver records stage timings into
 ``NbedDriver.timings`` and a ``device_trace`` context wraps
-``jax.profiler.trace`` for TPU-level (XLA op) profiles.
+``jax.profiler.trace`` for device-level (XLA op) profiles.
 """
 
 import contextlib
@@ -40,7 +40,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """XLA/TPU profiler trace (view with TensorBoard / xprof)."""
+    """XLA device profiler trace (view with TensorBoard / xprof)."""
     import jax
 
     jax.profiler.start_trace(log_dir)

@@ -4,7 +4,7 @@ All state lives in fixed-shape arrays: density matrices carry a leading spin
 axis ``(2, n, n)`` (a "restricted" calculation is the exact alpha==beta
 fixed point, reported with doubled occupations), the DIIS history is a
 static ring buffer, and convergence is a predicate of the loop carry. The
-whole SCF — Fock builds (MXU GEMMs over ERI supermatrices), XC quadrature,
+whole SCF — Fock builds (GEMMs over ERI supermatrices), XC quadrature,
 eigendecompositions, DIIS extrapolation — is one compiled XLA program per
 (molecule, method) signature; one J/K build per cycle.
 
@@ -12,12 +12,13 @@ Replaces: PySCF ``scf.UHF/UKS`` kernels (reference driver.py:112,163) and the
 Python-loop Huzinaga SCF (reference huzinaga_scf.py:154-199).
 """
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 
-__all__ = ["SCFResult", "run_scf", "make_rdm1", "lowdin_x", "eigh_refined"]
+__all__ = ["SCFResult", "run_scf", "make_rdm1", "lowdin_x"]
 
 
 class SCFResult(NamedTuple):
@@ -39,52 +40,9 @@ def make_rdm1(mo_coeff, mo_occ):
     return jnp.einsum("spi,si,sqi->spq", mo_coeff, mo_occ, mo_coeff)
 
 
-def eigh_refined(a):
-    """Symmetric eigh with one Newton refinement of the eigenvectors (TPU).
-
-    XLA's TPU eigh under f64 emulation returns f64-grade eigenVALUES and
-    orthonormality (~1e-13) but only f32-grade eigenVECTOR residuals
-    (|A V - V W| ~ 1e-7 |A|, measured round 3).  In the SCF loop that
-    floors the DIIS error matrix X^T(FDS-SDF)X at ~4e-8 — the density
-    converges but DIIS keeps extrapolating over pure eigenvector noise and
-    settles into a ~1e-6 limit cycle (water/STO-3G: 100 cycles,
-    1.3e-6 Ha high).  One first-order correction built from f64-true GEMMs
-    (those ARE accurate on TPU, ~1e-15) pushes the residual to
-    ~eps^2/gap: with R = V^T A V nearly diagonal, the skew update
-    Delta_ij = R_ij / (R_jj - R_ii) annihilates the off-diagonal coupling
-    to second order, and one Newton orthonormalisation V (3I - V^T V)/2
-    restores orthogonality.  Near-degenerate pairs keep Delta = 0:
-    intra-block rotations do not change any downstream subspace projector
-    (densities, DIIS errors), so the guard is safe.
-
-    Off-TPU the plain eigh is already ~1e-15 and is returned untouched
-    (keeps CPU programs bit-identical).
-    """
-    w, v = jnp.linalg.eigh(a)
-    if jax.default_backend() != "tpu":
-        return w, v
-    return newton_refine_eigh(a, v)
-
-
-def newton_refine_eigh(a, v):
-    """One Newton pass improving an approximate eigenbasis ``v`` of
-    symmetric ``a`` (see :func:`eigh_refined` for when and why)."""
-    r = jnp.einsum("...pi,...pq,...qj->...ij", v, a, v)
-    w = jnp.diagonal(r, axis1=-2, axis2=-1)
-    d = w[..., None, :] - w[..., :, None]  # d_ij = w_j - w_i
-    scale = jnp.max(jnp.abs(w), axis=-1, keepdims=True)[..., None]
-    safe = jnp.abs(d) > 1e-8 * scale
-    delta = jnp.where(safe, r / jnp.where(safe, d, 1.0), 0.0)
-    v = v + jnp.einsum("...ik,...kj->...ij", v, delta)
-    vtv = jnp.einsum("...ki,...kj->...ij", v, v)
-    eye = jnp.eye(a.shape[-1], dtype=a.dtype)
-    v = jnp.einsum("...ik,...kj->...ij", v, 1.5 * eye - 0.5 * vtv)
-    return w, v
-
-
 def lowdin_x(s):
     """S^{-1/2} via eigh (reference huzinaga_scf.py:128 uses scipy)."""
-    w, v = eigh_refined(s)
+    w, v = jnp.linalg.eigh(s)
     return (v * (1.0 / jnp.sqrt(w))[None, :]) @ v.T
 
 
@@ -106,6 +64,19 @@ def huzinaga_operator(fock, dm_occ_s, dm_virt_s):
     return huz + huz_virt
 
 
+def _highest_precision(fn):
+    """Trace every matrix product of ``fn`` at ``HIGHEST`` precision: true
+    f32 (never TF32) for the f32 warm-up and incremental paths, a no-op
+    for f64."""
+    @functools.wraps(fn)
+    def wrapped(**kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(**kwargs)
+
+    return wrapped
+
+
+@_highest_precision
 def run_scf(
     *,
     hcore,  # (n, n) or (2, n, n)
@@ -149,14 +120,17 @@ def run_scf(
 
     Incremental mixed precision (``jk_fn_fast``): since J/K are linear in
     the density, each cycle contracts only the density *change* against the
-    ERIs in f32 (MXU-rate on TPU, where f64 GEMMs are software-emulated)
-    and accumulates onto an f64 reference Fock: ``J(D_i) = J(D_ref) +
-    J32(D_i - D_ref)``. The f32 absolute error scales with ``|dD|``, which
-    decays geometrically as SCF converges, and a full-precision rebuild
-    every ``rebase_every`` cycles (plus the final consistency build) bounds
-    the accumulated drift — converged energies agree with the all-f64 path
-    to ~1e-9 Ha while paying emulated-f64 GEMM cost only 1/rebase_every of
-    the time.
+    ERIs in f32 and accumulates onto an f64 reference Fock: ``J(D_i) =
+    J(D_ref) + J32(D_i - D_ref)``. The f32 absolute error scales with
+    ``|dD|``, which decays geometrically as SCF converges, and a
+    full-precision rebuild every ``rebase_every`` cycles (plus the final
+    consistency build) bounds the accumulated drift — converged energies
+    agree with the all-f64 path to ~1e-9 Ha while paying the f64 GEMM cost
+    only 1/rebase_every of the time.
+
+    Every matrix product traced here runs at ``HIGHEST`` precision, so an
+    f32 operand is multiplied in true f32 (never TF32) and the error
+    argument above holds on any device; f64 products are unaffected.
 
     ``xc_fn_fast`` likewise moves the XC quadrature of *coarse* iterations
     (density change above ``xc_switch_tol``) to f32; once the density
@@ -226,7 +200,7 @@ def run_scf(
 
     def eig_fock(f):
         f_ortho = jnp.einsum("pi,spq,qj->sij", x, f, x)
-        mo_e, c_ortho = eigh_refined(f_ortho)
+        mo_e, c_ortho = jnp.linalg.eigh(f_ortho)
         return mo_e, jnp.einsum("pi,sij->spj", x, c_ortho)
 
     def roothaan_effective(f, dm):
@@ -268,17 +242,13 @@ def run_scf(
         big = big.at[:m, m].set(filled)
         big = big.at[m, :m].set(filled)
         rhs = jnp.zeros(m + 1, b.dtype).at[m].set(1.0)
-        # eigh-based pseudo-inverse, not jnp.linalg.lstsq: the f32 lstsq
-        # (SVD) lowering inside a while_loop crashes the TPU AOT compiler
-        # (XLA TransposeFolding SIGABRT, bisected round 3 in the CCSD
-        # sweep); eigh compiles in-loop on TPU (eig_fock below does it
-        # every cycle) and is the same pinv for this symmetric system.
-        # Refined eigh + a lindep-style relative cut: once the residuals
-        # hit the device noise floor, B is a nearly singular noise Gram
-        # matrix — inverting its noise directions produces wild
-        # extrapolation coefficients that kick the density off the fixed
-        # point (the TPU limit-cycle failure mode, round 3).
-        ew, ev = eigh_refined(big)
+        # eigh-based pseudo-inverse of the symmetric DIIS system (the loop
+        # already runs eigh every cycle in eig_fock) with a lindep-style
+        # relative cut: once the residuals hit the noise floor, B is a
+        # nearly singular noise Gram matrix, and inverting its noise
+        # directions produces wild extrapolation coefficients that kick
+        # the density off the fixed point.
+        ew, ev = jnp.linalg.eigh(big)
         cut = jnp.max(jnp.abs(ew)) * max(1e-12, (m + 1) * float(jnp.finfo(b.dtype).eps))
         inv_ew = jnp.where(jnp.abs(ew) > cut, 1.0 / ew, 0.0)
         coef = ((ev * inv_ew[None, :]) @ (ev.T @ rhs))[:m] * filled
@@ -408,9 +378,9 @@ def run_scf(
 
     if use_inc or use_xc_fast:
         # Full-precision polish: the mixed-precision loop's fixed point
-        # carries accumulated f32 contraction noise (measured ~2.5e-6 Ha on
-        # water HF, TPU round 3: the density random-walks in a noise ball
-        # and the de/ddm test can trip far from the true fixed point).  A
+        # carries accumulated f32 contraction noise (the density can
+        # random-walk in a noise ball and the de/ddm test trip far from
+        # the true fixed point).  A
         # short pure-f64 loop seeded from the mixed-precision density lands
         # on the exact f64 fixed point in a few cycles — the mixed loop is
         # thereby an aggressive warm start, not the final arbiter.

@@ -1,7 +1,7 @@
 """Spin-orbital MP2 (beyond the reference's CCSD/FCI solver menu).
 
 E(2) = 1/4 sum_{ijab} |<ij||ab>|^2 / (e_i + e_j - e_a - e_b) — one
-MXU-shaped contraction over the same antisymmetrized spin-orbital
+GEMM-shaped contraction over the same antisymmetrized spin-orbital
 integrals the CCSD solver consumes, and exactly the CCSD initial-guess
 doubles energy. Useful as a cheap correlation screen before paying for
 CCSD(T) on an embedded space.

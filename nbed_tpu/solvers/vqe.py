@@ -1,4 +1,4 @@
-"""TPU-native VQE on the embedded second-quantised Hamiltonian.
+"""On-device VQE on the embedded second-quantised Hamiltonian.
 
 The reference demonstrates the end purpose of the package — running a
 quantum algorithm on the embedded Hamiltonian — in

@@ -18,7 +18,6 @@ All host-side (numpy/scipy + one jitted energy program per basis shape).
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -15,7 +15,7 @@ element, using the general atomic ground-term HF solver
    the energy (the published exponents are variationally optimal; a wrong
    exponent row shows up as a downhill direction at the 0.1+ mHa scale).
 
-Run:  PYTHONPATH= python scripts/audit_row3_631g.py [symbols...]
+Run:  python scripts/audit_row3_631g.py [symbols...]
 """
 
 import sys

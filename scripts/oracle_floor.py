@@ -20,7 +20,7 @@ the floor: two independent, correct implementations whose global SCFs both
 stop at 1e-6 can legitimately disagree on the embedded energy by this
 much.
 
-Run:  PYTHONPATH= python scripts/oracle_floor.py [n_samples]
+Run:  python scripts/oracle_floor.py [n_samples]
 """
 
 import sys
@@ -28,9 +28,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

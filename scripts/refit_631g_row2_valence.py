@@ -14,7 +14,7 @@ For Li/Be the atom has no p occupation, so the p contraction coefficients
 are NOT determined by the atomic energy — they are left at their recalled
 values and documented as energetically inert for the audit.
 
-Run:  PYTHONPATH= python scripts/refit_631g_row2_valence.py [Be B Ne]
+Run:  python scripts/refit_631g_row2_valence.py [Be B Ne]
 Prints data_631g.py-ready rows and the energy ladder.
 """
 

@@ -8,7 +8,7 @@ fix IS the definition: optimize the four valence exponents and six sp2
 contraction coefficients for the Ar ground-state HF energy with the core
 shells fixed, and ship the optimized row (documented in data_631g.py).
 
-Run:  PYTHONPATH= python scripts/refit_ar_631g_valence.py
+Run:  python scripts/refit_ar_631g_valence.py
 """
 
 import sys

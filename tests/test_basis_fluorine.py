@@ -16,7 +16,6 @@ the PRA study) running at cc-pVDZ quality.
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

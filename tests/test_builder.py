@@ -44,10 +44,9 @@ def test_unrestricted_groundstate(water_uhf):
 def test_jw_term_count_converged(water_uhf):
     """The converged water/STO-3G Hamiltonian has exactly 1086 JW terms.
 
-    A run-to-run-stable count is a sharp convergence diagnostic: the TPU
-    limit-cycled/NaN'd SCFs of rounds 1-3 produced 1718/2090 terms because
-    near-zero integrals failed the EQ_TOLERANCE cut on unconverged
-    orbitals (bench.py tracks the same count on-device)."""
+    A run-to-run-stable count is a sharp convergence diagnostic:
+    limit-cycled or unconverged SCFs produce more terms, because near-zero
+    integrals fail the EQ_TOLERANCE cut on unconverged orbitals."""
     const, h1, h2 = HamiltonianBuilder(water_uhf, 0).build()
     assert len(jordan_wigner(const, h1, h2).terms) == 1086
 

@@ -63,9 +63,8 @@ def test_df_b3lyp_energy(water_molecule, water_uks):
 
 def test_df_k_chunked_matches_unblocked(water_molecule):
     """The aux-chunked DF exchange (lax.fori_loop over P blocks) is exact:
-    K = sum_P B_P D B_P^T under any partition of P.  The chunked branch is
-    what runs at pfoa scale on TPU (the unblocked (nao, nao, naux)
-    intermediate OOMs under f64-emulation temps)."""
+    K = sum_P B_P D B_P^T under any partition of P.  The chunked branch
+    bounds device memory at large nao."""
     import jax.numpy as jnp
 
     import nbed_tpu.scf.engine as eng_mod
@@ -89,7 +88,7 @@ def test_df_k_chunked_matches_unblocked(water_molecule):
 
 def test_xc_pack_prefers_table_below_limit(water_molecule):
     """Table XC is used up to _XC_TABLE_LIMIT AO-table elements and only
-    then streams — the table path is the TPU-validated one (pfoa bisect)."""
+    then streams (the streaming path exists only to bound memory)."""
     eng = SCFEngine(water_molecule, xc="b3lyp")
     assert eng._xc_pack(np.float64)[0] == "table"
     eng2 = SCFEngine(water_molecule, xc="b3lyp", max_memory_mb=0.0)

@@ -4,7 +4,7 @@ quantities are grid-limited (tolerances noted inline)."""
 
 import numpy as np
 import pytest
-from pydantic import ValidationError
+from nbed_tpu.config import ValidationError
 
 from nbed_tpu.config import NbedConfig, ProjectorTypes
 from nbed_tpu.driver import NbedDriver

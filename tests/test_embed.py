@@ -3,7 +3,7 @@
 import json
 
 import pytest
-from pydantic import ValidationError
+from nbed_tpu.config import ValidationError
 
 from nbed_tpu.driver import NbedDriver
 from nbed_tpu.embed import nbed
@@ -78,7 +78,7 @@ def test_symmetry_true_rejected():
     """symmetry=True must error loudly, not silently no-op (the reference
     forwards it to gto.Mole; this backend has no point-group machinery)."""
     import pytest
-    from pydantic import ValidationError
+    from nbed_tpu.config import ValidationError
 
     from nbed_tpu.config import NbedConfig
 

@@ -78,9 +78,6 @@ def test_high_rules_available():
 @pytest.mark.slow
 def test_grid_level_density_integration():
     """The pruned molecular grid integrates the SCF density to nelec."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from nbed_tpu.chem import build_molecule
     from nbed_tpu.grids.grid import build_grid, eval_aos
     from nbed_tpu.scf.engine import SCFEngine

@@ -13,8 +13,8 @@ pytestmark = pytest.mark.slow  # driver/compile-heavy; smoke tier = -m 'not slow
 def test_multichunk_fori_loop_paths_exact(water_molecule, xc):
     """The chunked fori_loop accumulation (table and streaming variants)
     must reproduce the single-chunk result bit-for-bit-grade: the loop
-    carries (exc, vxc) accumulators instead of stacking per-chunk outputs
-    (the lax.map stacking lowering crashed the TPU worker at pfoa scale)."""
+    carries (exc, vxc) accumulators instead of stacking per-chunk
+    outputs."""
     import jax.numpy as jnp
 
     from nbed_tpu.dft.xc import make_xc_fn, make_xc_fn_streaming
